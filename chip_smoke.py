@@ -1,0 +1,341 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py          # from the repository root, one card
+
+Phases, each fatal on failure (non-zero exit, no result line):
+
+1. print the card's name and power limit (``nvidia-smi``) and build the
+   CUDA kernels from ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per
+   source, all at once);
+2. hold every kernel against its plain PyTorch version on the card, at
+   the shapes the main path gives it (n = 131072 points, d = 32) and at
+   edge cases (ragged sizes, zero scales, an isolated point, width 64),
+   and time kernel and plain version with CUDA events;
+3. a small-input reference: a fit of 4096 points on the card against the
+   same fit on the CPU through the plain versions (eigenvalues within
+   1e-3, labels ARI >= 0.99); as the first fit of the process it also
+   carries the one-time set-up, so the main path starts warm;
+4. the main path, with every launch counter set to 0 just before it:
+   ``SpectralClustering(8, affinity="fused-rbf", eigensolver=...,
+   assigner="lloyd").fit`` on 131072 blobs points with ``block-lanczos``
+   and with ``lanczos`` (ARI >= 0.99 against the planted labels), then
+   4 ``predict`` requests of 16384 held-out points (fused route, ARI >=
+   0.99); every kernel's counter must have risen.
+
+The last two lines of standard output are one JSON object per kernel
+(``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+N, D, K = 131072, 32, 8          # training points, features, clusters
+M_REQ, N_REQ = 16384, 4          # predict requests: rows each, count
+ARI_MIN = 0.99
+TOL = 1e-4        # kernel vs plain: max |err| / max(1, max |plain|)
+EIG_TOL = 1e-3    # card fit vs CPU fit eigenvalues (small input)
+# H100 SXM data sheet, 700 W: HBM rate and f32 non-tensor peak
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip()
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
+
+
+def time_ms(torch, fn, reps: int) -> float:
+    """Mean device time of ``fn`` over ``reps`` calls, after one warm-up."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def compare(torch, name, got, want, tol=TOL) -> float:
+    """Max abs error of ``got`` against ``want``; fails past ``tol`` times
+    max(1, max |want|)."""
+    err = float((got - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    finite = bool(torch.isfinite(got).all())
+    print(f"  {name}: max_abs_err {err:.3e} (limit {tol * scale:.3e})"
+          f"{'' if finite else ' NON-FINITE'}")
+    if not finite or err > tol * scale:
+        fail(f"{name} disagrees with its plain version")
+    return err
+
+
+def check_kernels(torch, x, sigma, dev):
+    """Phase 2: every kernel against its plain version, plus timings."""
+    from repro_torch.kernels import (fused_rbf_matmat as frm,
+                                     kmeans_assign as ka)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    rows = {}
+
+    # -- fused_rbf_matmat at the main path's shapes ----------------------
+    n = x.shape[0]
+    ones = torch.ones((n,), device=dev)
+    scale = torch.rand((n,), generator=g, device=dev) * 0.01
+    V8 = torch.randn((n, 8), generator=g, device=dev)
+    err1 = compare(torch, f"fused_rbf_matmat n={n} d={D} b=1 (degree pass)",
+                   frm.fused_rbf_matmat(x, x, ones[:, None], sigma, ones,
+                                        ones),
+                   frm.fused_rbf_matmat_plain(x, x, ones[:, None], sigma,
+                                              ones, ones))
+    err8 = compare(torch, f"fused_rbf_matmat n={n} d={D} b=8",
+                   frm.fused_rbf_matmat(x, x, V8, sigma, scale, scale),
+                   frm.fused_rbf_matmat_plain(x, x, V8, sigma, scale, scale))
+    # edge cases: ragged sizes, zero scales, an isolated point, width 64
+    xe = x[:8192].clone()
+    xe[7] = 1e4
+    for ne, me, b in [(8191, 8192, 1), (8192, 8191, 8), (8191, 8191, 64)]:
+        Ve = torch.randn((me, b), generator=g, device=dev)
+        rs = torch.rand((ne,), generator=g, device=dev)
+        cs = torch.rand((me,), generator=g, device=dev)
+        rs[::7] = 0.0
+        cs[::5] = 0.0
+        compare(torch, f"fused_rbf_matmat n={ne} m={me} b={b} "
+                f"(zero scales, isolated point)",
+                frm.fused_rbf_matmat(xe[:ne], xe[:me], Ve, sigma, rs, cs),
+                frm.fused_rbf_matmat_plain(xe[:ne], xe[:me], Ve, sigma, rs,
+                                           cs))
+    fl = lambda b: 2 * n * n * D + 2 * n * n * b + 5 * n * n  # noqa: E731
+    by = lambda b: 4 * (2 * n * D + 2 * n * b + 2 * n)        # noqa: E731
+    t8 = time_ms(torch, lambda: frm.fused_rbf_matmat(x, x, V8, sigma, scale,
+                                                     scale), 5)
+    p8 = time_ms(torch, lambda: frm.fused_rbf_matmat_plain(
+        x, x, V8, sigma, scale, scale), 2)
+    t1 = time_ms(torch, lambda: frm.fused_rbf_matmat(
+        x, x, ones[:, None], sigma, ones, ones), 5)
+    p1 = time_ms(torch, lambda: frm.fused_rbf_matmat_plain(
+        x, x, ones[:, None], sigma, ones, ones), 2)
+    b8, b8_by = bound(fl(8), by(8))
+    b1, b1_by = bound(fl(1), by(1))
+    print(f"  timing fused_rbf_matmat n=m={n} d={D} b=8: kernel {t8:.3f} ms,"
+          f" plain {p8:.3f} ms, bound {b8:.3f} ms ({b8_by})")
+    print(f"  timing fused_rbf_matmat n=m={n} d={D} b=1: kernel {t1:.3f} ms,"
+          f" plain {p1:.3f} ms, bound {b1:.3f} ms ({b1_by})")
+    rows["fused_rbf_matmat"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_rbf.cu",
+        replaces="src/repro/kernels/fused_rbf_matmat.py:286",
+        shape=f"n=m={n} d={D} b=8", max_abs_err=max(err1, err8), ms=t8,
+        plain_ms=p8, bound_ms=b8, bound_by=b8_by, library_ms=None,
+        b1=dict(ms=t1, plain_ms=p1, bound_ms=b1, bound_by=b1_by))
+
+    # -- fused_nystrom_matmat: M_REQ queries against the training set ----
+    q = x[:M_REQ] + 0.01 * torch.randn((M_REQ, D), generator=g, device=dev)
+    Z = torch.randn((n, K), generator=g, device=dev)
+    cs = torch.rand((n,), generator=g, device=dev) * 0.01
+    O, dg = frm.fused_nystrom_matmat(q, x, Z, sigma, cs, ones)
+    Or, dgr = frm.fused_nystrom_matmat_plain(q, x, Z, sigma, cs, ones)
+    errn = max(compare(torch, f"fused_nystrom_matmat m={M_REQ} n={n} k={K}"
+                       f" (product)", O, Or),
+               compare(torch, f"fused_nystrom_matmat m={M_REQ} n={n} k={K}"
+                       f" (degree)", dg, dgr))
+    cse, cve = cs[:8191].clone(), ones[:8191].clone()
+    cse[::5] = 0.0                  # isolated training points: valid, no
+    cve[::10] = 0.0                 # product weight; invalid rows: neither
+    Oe, dge = frm.fused_nystrom_matmat(q[:4095], xe[:8191], Z[:8191], sigma,
+                                       cse, cve)
+    Oer, dger = frm.fused_nystrom_matmat_plain(q[:4095], xe[:8191],
+                                               Z[:8191], sigma, cse, cve)
+    compare(torch, "fused_nystrom_matmat m=4095 n=8191 (masked rows)", Oe,
+            Oer)
+    compare(torch, "fused_nystrom_matmat m=4095 n=8191 (masked degree)",
+            dge, dger)
+    m = M_REQ
+    tn = time_ms(torch, lambda: frm.fused_nystrom_matmat(q, x, Z, sigma, cs,
+                                                         ones), 5)
+    pn = time_ms(torch, lambda: frm.fused_nystrom_matmat_plain(
+        q, x, Z, sigma, cs, ones), 2)
+    bn, bn_by = bound(2 * m * n * D + 2 * m * n * (K + 1) + 5 * m * n,
+                      4 * (m * D + n * D + n * K + 2 * n + m * K + m))
+    print(f"  timing fused_nystrom_matmat m={m} n={n} k={K}: kernel "
+          f"{tn:.3f} ms, plain {pn:.3f} ms, bound {bn:.3f} ms ({bn_by})")
+    rows["fused_nystrom_matmat"] = dict(
+        source="src/repro_torch/kernels/csrc/fused_rbf.cu",
+        replaces="src/repro/kernels/fused_rbf_matmat.py:222",
+        shape=f"m={m} n={n} d={D} k={K}", max_abs_err=errn, ms=tn,
+        plain_ms=pn, bound_ms=bn, bound_by=bn_by, library_ms=None)
+
+    # -- kmeans_assign at n points of the k-dim embedding ----------------
+    P = torch.randn((n, K), generator=g, device=dev)
+    C = torch.randn((K, K), generator=g, device=dev)
+    idx, dist = ka.kmeans_assign(P, C)
+    idx_r, dist_r = ka.kmeans_assign_plain(P, C)
+    errk = compare(torch, f"kmeans_assign n={n} k={K} (distances)", dist,
+                   dist_r)
+    d2 = torch.clamp_min((P * P).sum(1)[:, None] + (C * C).sum(1)[None, :]
+                         - 2.0 * P @ C.T, 0.0)
+    diff = idx != idx_r
+    gap = (d2.gather(1, idx[:, None]) - d2.gather(1, idx_r[:, None])).abs()
+    near_tie = gap[:, 0] <= TOL * torch.clamp_min(dist_r, 1.0)
+    print(f"  kmeans_assign n={n} k={K}: {int(diff.sum())} labels differ, "
+          f"all near-ties: {bool(near_tie[diff].all())}")
+    if not bool(near_tie[diff].all()):
+        fail("kmeans_assign picks another center than its plain version")
+    tie = torch.zeros((64, K), device=dev)        # all centers equidistant
+    if int(ka.kmeans_assign(tie, torch.zeros((K, K), device=dev))[0]
+           .max()) != 0:
+        fail("kmeans_assign ties must resolve to the lowest index")
+    tk = time_ms(torch, lambda: ka.kmeans_assign(P, C), 20)
+    pk = time_ms(torch, lambda: ka.kmeans_assign_plain(P, C), 20)
+    bk, bk_by = bound(2 * n * K * K + 2 * n * K + 4 * n * K,
+                      4 * n * K + 4 * K * K + 12 * n)
+    print(f"  timing kmeans_assign n={n} k={K}: kernel {tk:.4f} ms, plain "
+          f"{pk:.4f} ms, bound {bk:.4f} ms ({bk_by})")
+    rows["kmeans_assign"] = dict(
+        source="src/repro_torch/kernels/csrc/kmeans_assign.cu",
+        replaces="src/repro/kernels/kmeans_assign.py:33",
+        shape=f"n={n} k={K} dim={K}", max_abs_err=errk, ms=tk, plain_ms=pk,
+        bound_ms=bk, bound_by=bk_by, library_ms=None)
+    return rows
+
+
+def main() -> int:
+    sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import numpy as np
+
+    from repro_torch import SpectralClustering, ari
+    from repro_torch.core.similarity import median_sigma
+    from repro_torch.data.synthetic import blobs
+    from repro_torch.device import resolve_device
+    from repro_torch.kernels import (_build, fused_rbf_matmat as frm,
+                                     kmeans_assign as ka)
+
+    kernels = {"fused_rbf_matmat": frm.fused_rbf_matmat,
+               "fused_nystrom_matmat": frm.fused_nystrom_matmat,
+               "kmeans_assign": ka.kmeans_assign}
+    card = card_line()
+    print(card)
+    dev = resolve_device()
+    name = torch.cuda.get_device_name(0)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}")
+
+    t0 = time.perf_counter()
+    for lib in _build.build_all().values():
+        regs = [ln.strip() for ln in open(f"{lib}.log")
+                if "registers" in ln or "Compiling entry" in ln]
+        print(f"built {os.path.basename(lib)}:\n    " + "\n    ".join(regs))
+    print(f"build: {time.perf_counter() - t0:.1f} s")
+
+    pts, truth = blobs(N + N_REQ * M_REQ, K, dim=D, seed=0)
+    x = torch.as_tensor(pts[:N], device=dev)
+    sigma = float(median_sigma(x))
+    print(f"data: blobs n={N} d={D} k={K}, sigma={sigma:.6f}")
+
+    print("phase kernels vs plain:")
+    rows = check_kernels(torch, x, sigma, dev)
+
+    print("phase small-input reference (card vs CPU plain versions):")
+    n_small = 4096
+    t0 = time.perf_counter()
+    card_fit = SpectralClustering(K, eigensolver="block-lanczos",
+                                  seed=0).fit(pts[:n_small])
+    torch.cuda.synchronize()
+    print(f"  first fit of the process (n={n_small}, set-up included): "
+          f"{time.perf_counter() - t0:.3f} s")
+    cpu_fit = SpectralClustering(K, eigensolver="block-lanczos", seed=0,
+                                 device="cpu").fit(pts[:n_small])
+    ev_card = card_fit.eigenvalues_.cpu().numpy()
+    ev_cpu = cpu_fit.eigenvalues_.numpy()
+    ev_err = float(np.abs(ev_card - ev_cpu).max())
+    agree = ari(cpu_fit.labels_.numpy(), card_fit.labels_.cpu().numpy())
+    print(f"  n={n_small}: eigenvalue max diff {ev_err:.3e} (limit "
+          f"{EIG_TOL}), labels ARI {agree:.6f}")
+    if ev_err > EIG_TOL or agree < ARI_MIN:
+        fail("card fit disagrees with the CPU reference fit")
+
+    print("phase main path (fit, fit, serve):")
+    for fn in kernels.values():
+        fn.launches = 0
+    fits = {}
+    for solver in ("block-lanczos", "lanczos"):
+        before = {k: fn.launches for k, fn in kernels.items()}
+        t0 = time.perf_counter()
+        est = SpectralClustering(K, affinity="fused-rbf",
+                                 eigensolver=solver, assigner="lloyd",
+                                 seed=0)
+        est.fit(pts[:N])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        labels = est.labels_.cpu().numpy()
+        evals = est.eigenvalues_.cpu().numpy()
+        score = ari(truth[:N], labels)
+        launches = {k: fn.launches - before[k] for k, fn in kernels.items()}
+        print(f"  fit {solver}: wall {wall:.3f} s, phases "
+              f"{ {k: round(v, 4) for k, v in est.info_['phase_s'].items()} },"
+              f" matrix_passes {est.info_['engine']['matrix_passes']}, "
+              f"launches {launches}")
+        print(f"    eigenvalues {np.array2string(evals, precision=6)}")
+        print(f"    ARI vs planted labels {score:.6f}")
+        if labels.shape != (N,) or not np.isfinite(evals).all():
+            fail(f"fit {solver}: bad labels shape or eigenvalues")
+        if score < ARI_MIN:
+            fail(f"fit {solver}: ARI {score:.4f} < {ARI_MIN}")
+        fits[solver] = est
+
+    est = fits["block-lanczos"]
+    before = {k: fn.launches for k, fn in kernels.items()}
+    for r in range(N_REQ):
+        lo = N + r * M_REQ
+        t0 = time.perf_counter()
+        pred = est.predict(pts[lo:lo + M_REQ])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        route = est.info_["transform"]["path"]
+        score = ari(truth[lo:lo + M_REQ], pred.cpu().numpy())
+        print(f"  predict request {r}: {M_REQ} points, {ms:.3f} ms, route "
+              f"{route}, ARI {score:.6f}")
+        if route != "fused" or score < ARI_MIN:
+            fail(f"predict request {r}: route {route}, ARI {score:.4f}")
+    launches = {k: fn.launches - before[k] for k, fn in kernels.items()}
+    print(f"  serve launches {launches}")
+    counts = {k: fn.launches for k, fn in kernels.items()}
+    print(f"  main path launches {counts}")
+    for k, c in counts.items():
+        if c <= 0:
+            fail(f"the main path never launched {k}")
+
+    print(card)
+    print(json.dumps({"kernels": [
+        dict(name=k, route="cuda", launches=counts[k], **rows[k])
+        for k in kernels]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -24,6 +24,12 @@ if _LOCKCHECK:
     lockcheck.install()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA card (the PyTorch port's kernels); "
+        "skips elsewhere")
+
+
 def pytest_sessionfinish(session, exitstatus):
     if not _LOCKCHECK:
         return

@@ -1,0 +1,99 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.
+
+Every test here is marked ``gpu`` and skips inside the ``cuda`` fixture
+where ``torch.cuda.is_available()`` is false.  The file imports neither
+``jax`` nor ``repro`` (the machine with the card has no JAX), so it runs
+there as
+
+    PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
+
+Tolerance: max |kernel - plain| <= 1e-4 * max(1, max |plain|) — f32 sums
+taken in another order; ``kmeans_assign`` labels may differ only on
+near-ties.
+"""
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import fused_rbf_matmat as frm, kmeans_assign as ka
+
+
+def _t(a):
+    return torch.as_tensor(np.asarray(a, np.float32))
+
+
+def _case(seed, n, m, d, b):
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, d).astype(np.float32)
+    y = rng.randn(m, d).astype(np.float32)
+    V = rng.randn(m, b).astype(np.float32)
+    rs = rng.uniform(0.1, 1.0, n).astype(np.float32)
+    cs = rng.uniform(0.1, 1.0, m).astype(np.float32)
+    rs[::7] = 0.0
+    cs[::5] = 0.0
+    return x, y, V, rs, cs
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from repro_torch.device import resolve_device
+    return resolve_device("cuda")
+
+
+def _rel_err(got, want):
+    return float((got - want).abs().max()) / max(1.0,
+                                                 float(want.abs().max()))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,b", [(8191, 8192, 1), (8192, 8191, 8),
+                                   (1000, 999, 64), (70, 3, 5)])
+def test_gpu_fused_rbf_kernel_matches_plain(cuda, n, m, b):
+    x, y, V, rs, cs = _case(b, n, m, 32, b)
+    x[7] = 1e4                              # isolated point
+    args = [_t(a).to(cuda) for a in (x, y, V)]
+    rs_t, cs_t = _t(rs).to(cuda), _t(cs).to(cuda)
+    launches = frm.fused_rbf_matmat.launches
+    got = frm.fused_rbf_matmat(*args, 4.0, rs_t, cs_t)
+    torch.cuda.synchronize()
+    assert frm.fused_rbf_matmat.launches == launches + 1
+    want = frm.fused_rbf_matmat_plain(*args, 4.0, rs_t, cs_t)
+    assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,b", [(4095, 8191, 8), (16, 300, 63)])
+def test_gpu_fused_nystrom_kernel_matches_plain(cuda, m, n, b):
+    x, y, V, _, cs = _case(m, m, n, 32, b)
+    cv = np.ones(n, np.float32)
+    cv[::6] = 0.0
+    cs[::6] = 0.0
+    args = [_t(a).to(cuda) for a in (x, y, V)]
+    got = frm.fused_nystrom_matmat(*args, 4.0, _t(cs).to(cuda),
+                                   _t(cv).to(cuda))
+    want = frm.fused_nystrom_matmat_plain(*args, 4.0, _t(cs).to(cuda),
+                                          _t(cv).to(cuda))
+    torch.cuda.synchronize()
+    assert _rel_err(got[0], want[0]) <= 1e-4
+    assert _rel_err(got[1], want[1]) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gpu_kmeans_assign_kernel_matches_plain(cuda):
+    rng = np.random.RandomState(0)
+    p = _t(rng.randn(131072, 8)).to(cuda)
+    c = _t(rng.randn(8, 8)).to(cuda)
+    idx, dist = ka.kmeans_assign(p, c)
+    idx_r, dist_r = ka.kmeans_assign_plain(p, c)
+    torch.cuda.synchronize()
+    assert _rel_err(dist, dist_r) <= 1e-4
+    d2 = torch.cdist(p, c) ** 2
+    gap = (d2.gather(1, idx[:, None]) - d2.gather(1, idx_r[:, None])).abs()
+    assert bool((gap[idx != idx_r] <= 1e-4).all())   # only near-ties differ
+    dup = torch.cat([c[:1], c]).contiguous()
+    assert int(ka.kmeans_assign(c, dup)[0][0]) == 0   # tie -> lowest index
