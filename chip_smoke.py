@@ -16,33 +16,63 @@ Phases, each fatal on failure (non-zero exit, no result line):
    same fit on the CPU through the plain versions (eigenvalues within
    1e-3, labels ARI >= 0.99); as the first fit of the process it also
    carries the one-time set-up, so the main path starts warm;
-4. the main path, with every launch counter set to 0 just before it:
-   ``SpectralClustering(8, affinity="fused-rbf", eigensolver=...,
+4. the fused main path, with every launch counter set to 0 just before
+   it: ``SpectralClustering(8, affinity="fused-rbf", eigensolver=...,
    assigner="lloyd").fit`` on 131072 blobs points with ``block-lanczos``
-   and with ``lanczos`` (ARI >= 0.99 against the planted labels), then
+   and on the first 32768 of them with ``lanczos`` (ARI >= 0.99 against
+   the planted labels), then
    4 ``predict`` requests of 16384 held-out points (fused route, ARI >=
-   0.99); every kernel's counter must have risen.
+   0.99); every kernel's counter must have risen;
+5. the dense family's kernels against their plain versions at its shapes
+   (``rbf_similarity`` and ``block_matmat`` at n = m = 65536, row stripes
+   4096 rows long at both ends of S, the last past element 2^31, and
+   ragged cases), timed beside ``torch.matmul``;
+6. the dense path, counters set to 0 just before it: fits of 65536
+   points with ``dense``, ``knn-topt`` and ``precomputed`` (on the S that
+   ``rbf_similarity`` built; labels equal to the ``dense`` fit's), each
+   ARI >= 0.99; the ``eigh`` oracle's eigenvalues against
+   ``block-lanczos`` at n = 8192; the dense fit saved, loaded and serving
+   16384 held-out points with the labels of the fitted model.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N, D, K = 131072, 32, 8          # training points, features, clusters
+N_LANCZOS = 32768                # the single-vector lanczos fit's points
 M_REQ, N_REQ = 16384, 4          # predict requests: rows each, count
 ARI_MIN = 0.99
 TOL = 1e-4        # kernel vs plain: max |err| / max(1, max |plain|)
 EIG_TOL = 1e-3    # card fit vs CPU fit eigenvalues (small input)
+EIGH_TOL = 1e-4   # eigh vs block-lanczos eigenvalues (dense, n = N_EIGH)
 # H100 SXM data sheet, 700 W: HBM rate and f32 non-tensor peak
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+N_DENSE = 65536                  # dense path: 4 n^2 bytes = 16 GiB of S
+N_EIGH = 8192                    # the eigh oracle's size
+STRIPE = 4096                    # rows of S compared with the plain version
+# knn-topt's Krylov dimension: the top-10 graph's eigengap is far smaller
+# than the dense graph's, and the default 32 does not resolve 8 clusters
+KNN_LANCZOS_STEPS = 256
+
+
+T_START = time.perf_counter()
+
+
+def phase(title: str) -> None:
+    """Print a phase's header with the seconds since the script began."""
+    print(f"phase {title} [{time.perf_counter() - T_START:.1f} s]:")
 
 
 def fail(msg: str) -> None:
@@ -217,6 +247,180 @@ def check_kernels(torch, x, sigma, dev):
     return rows
 
 
+def check_dense_kernels(torch, x, sigma, dev):
+    """Phase 5: ``rbf_similarity`` and ``block_matmat`` against their
+    plain versions at the dense path's shapes, plus timings."""
+    from repro_torch.kernels import block_matvec as bmv, rbf_similarity as rbf
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    rows = {}
+    n = x.shape[0]
+
+    # -- rbf_similarity: S of the dense path, two stripes, ragged cases --
+    S = rbf.rbf_similarity(x, x, sigma)
+    errs = []
+    for r0 in (0, n - STRIPE):
+        past = (r0 + STRIPE) * n > 2 ** 31
+        errs.append(compare(
+            torch, f"rbf_similarity n=m={n} d={D} rows {r0}..{r0 + STRIPE}"
+            f"{' (past element 2^31)' if past else ''}", S[r0:r0 + STRIPE],
+            rbf.rbf_similarity_plain(x[r0:r0 + STRIPE], x, sigma)))
+    for ne, me, de in [(1000, 777, 3), (4097, 4095, 33), (1, 5, 2)]:
+        a = torch.randn((ne, de), generator=g, device=dev)
+        b = torch.randn((me, de), generator=g, device=dev)
+        a[0] = 1e4                                   # isolated point
+        compare(torch, f"rbf_similarity n={ne} m={me} d={de} (ragged)",
+                rbf.rbf_similarity(a, b, 2.0),
+                rbf.rbf_similarity_plain(a, b, 2.0))
+    tr = time_ms(torch, lambda: rbf.rbf_similarity(x, x, sigma), 3)
+    pr = time_ms(torch, lambda: rbf.rbf_similarity_plain(x, x, sigma), 1)
+    br, br_by = bound(2 * n * n * D + 2 * 2 * n * D + 6 * n * n,
+                      4 * (2 * n * D + n * n))
+    print(f"  timing rbf_similarity n=m={n} d={D}: kernel {tr:.3f} ms, "
+          f"plain {pr:.3f} ms, bound {br:.3f} ms ({br_by})")
+    rows["rbf_similarity"] = dict(
+        source="src/repro_torch/kernels/csrc/rbf_similarity.cu",
+        replaces="src/repro/kernels/rbf_similarity.py:35",
+        shape=f"n=m={n} d={D}", max_abs_err=max(errs), ms=tr, plain_ms=pr,
+        bound_ms=br, bound_by=br_by, library_ms=None)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- block_matmat: the dense operator's pass over that S -------------
+    timing = {}
+    for b in (8, 1):
+        V = torch.randn((n, b), generator=g, device=dev)
+        err = compare(torch, f"block_matmat n=m={n} b={b}",
+                      bmv.block_matmat(S, V), bmv.block_matmat_plain(S, V))
+        t = time_ms(torch, lambda: bmv.block_matmat(S, V), 5)
+        p = time_ms(torch, lambda: bmv.block_matmat_plain(S, V), 5)
+        lib = time_ms(torch, lambda: torch.matmul(S, V), 5)
+        bb, bb_by = bound(2 * n * n * b, 4 * (n * n + 2 * n * b))
+        print(f"  timing block_matmat n=m={n} b={b}: kernel {t:.3f} ms, "
+              f"plain {p:.3f} ms, torch.matmul {lib:.3f} ms, bound "
+              f"{bb:.3f} ms ({bb_by})")
+        timing[b] = dict(max_abs_err=err, ms=t, plain_ms=p, bound_ms=bb,
+                         bound_by=bb_by, library_ms=lib)
+    for ne, me, b in [(1000, 777, 1), (1000, 777, 3), (8191, 8193, 8),
+                      (300, 129, 17), (70, 5, 64)]:
+        A = torch.rand((ne, me), generator=g, device=dev)
+        V = torch.randn((me, b), generator=g, device=dev)
+        compare(torch, f"block_matmat n={ne} m={me} b={b} (ragged)",
+                bmv.block_matmat(A, V), bmv.block_matmat_plain(A, V))
+    rows["block_matmat"] = dict(
+        source="src/repro_torch/kernels/csrc/block_matmat.cu",
+        replaces="src/repro/kernels/block_matvec.py:111",
+        shape=f"n=m={n} b=8", **dict(timing[8], max_abs_err=max(
+            timing[8]["max_abs_err"], timing[1]["max_abs_err"])),
+        b1=timing[1])
+    return rows
+
+
+def dense_path(torch, np, pts, truth, kernels):
+    """Phase 6: the dense family's fits, the eigh oracle and save/load;
+    returns the launch counts of the phase."""
+    from repro_torch import SpectralClustering, ari
+    from repro_torch.core.similarity import median_sigma
+    from repro_torch.kernels import ops
+    n = N_DENSE
+    x = pts[:n]
+    limit = 3 * 4 * n * n
+
+    def run(label, fn):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = {k: f.launches for k, f in kernels.items()}
+        t0 = time.perf_counter()
+        est = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = {k: f.launches - before[k] for k, f in kernels.items()}
+        labels = est.labels_.cpu().numpy()
+        evals = est.eigenvalues_.cpu().numpy()
+        score = ari(truth[:n], labels)
+        print(f"  {label}: wall {wall:.3f} s, phases "
+              f"{ {k: round(v, 4) for k, v in est.info_['phase_s'].items()} },"
+              f" matrix_passes {est.info_['matrix_passes']}, launches "
+              f"{launches}, peak {peak / 2**30:.2f} GiB")
+        print(f"    eigenvalues {np.array2string(evals, precision=6)}")
+        print(f"    ARI vs planted labels {score:.6f}")
+        if labels.shape != (n,) or not np.isfinite(evals).all():
+            fail(f"{label}: bad labels shape or eigenvalues")
+        if score < ARI_MIN:
+            fail(f"{label}: ARI {score:.4f} < {ARI_MIN}")
+        if launches["block_matmat"] <= 0 or launches["rbf_similarity"] <= 0:
+            fail(f"{label}: the dense kernels were not launched")
+        return est, peak
+
+    def fit(affinity, data, **kw):
+        return SpectralClustering(K, affinity=affinity,
+                                  eigensolver="block-lanczos",
+                                  assigner="lloyd", seed=0, **kw).fit(data)
+
+    for f in kernels.values():
+        f.launches = 0
+    dense, peak = run("fit dense", lambda: fit("dense", x))
+    if peak >= limit:
+        fail(f"dense fit peak {peak} B >= 3 * 4 n^2 = {limit} B")
+    run("fit knn-topt", lambda: fit("knn-topt", x,
+                                    lanczos_steps=KNN_LANCZOS_STEPS))
+
+    def precomputed():
+        xt = torch.as_tensor(x, device=dense.device)
+        S = ops.rbf_similarity(xt, xt, median_sigma(xt))
+        return fit("precomputed", S)
+    pre, _ = run("S build + fit precomputed", precomputed)
+    same = ari(dense.labels_.cpu().numpy(), pre.labels_.cpu().numpy())
+    print(f"  precomputed vs dense labels: ARI {same:.6f}, equal "
+          f"{bool((dense.labels_ == pre.labels_).all())}")
+    if same != 1.0:
+        fail("the precomputed fit on the kernel's S disagrees with dense")
+    del pre
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase(f"eigh oracle (dense, n={N_EIGH})")
+    ev = {}
+    for solver in ("eigh", "block-lanczos"):
+        t0 = time.perf_counter()
+        est = SpectralClustering(K, affinity="dense", eigensolver=solver,
+                                 seed=0).fit(x[:N_EIGH])
+        torch.cuda.synchronize()
+        ev[solver] = est.eigenvalues_.cpu().numpy()
+        print(f"  {solver}: wall {time.perf_counter() - t0:.3f} s, "
+              f"eigenvalues {np.array2string(ev[solver], precision=7)}")
+    diff = float(np.abs(ev["eigh"] - ev["block-lanczos"]).max())
+    print(f"  eigh vs block-lanczos: max eigenvalue diff {diff:.3e} "
+          f"(limit {EIGH_TOL})")
+    if not diff <= EIGH_TOL:
+        fail("eigh and block-lanczos eigenvalues disagree")
+
+    phase(f"save/load (dense fit, n={n})")
+    held = pts[n:n + M_REQ]
+    directory = tempfile.mkdtemp(prefix="chip_smoke_model_")
+    try:
+        t0 = time.perf_counter()
+        dense.save(directory)
+        loaded = SpectralClustering.load(directory, device=None)
+        print(f"  save + load: {time.perf_counter() - t0:.3f} s, files "
+              f"{sorted(os.listdir(directory))}")
+    finally:
+        shutil.rmtree(directory)
+    want = dense.predict(held)
+    got = loaded.predict(held)
+    torch.cuda.synchronize()
+    route = loaded.info_["transform"]["path"]
+    score = ari(truth[n:n + M_REQ], got.cpu().numpy())
+    equal = bool((want == got).all())
+    print(f"  predict {M_REQ} held-out points: saved and loaded labels "
+          f"equal {equal}, route {route}, ARI {score:.6f}")
+    if not equal or route != "fused" or score < ARI_MIN:
+        fail("the loaded model does not serve like the saved one")
+    return {k: f.launches for k, f in kernels.items()}
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     import torch
@@ -230,12 +434,18 @@ def main() -> int:
     from repro_torch.core.similarity import median_sigma
     from repro_torch.data.synthetic import blobs
     from repro_torch.device import resolve_device
-    from repro_torch.kernels import (_build, fused_rbf_matmat as frm,
-                                     kmeans_assign as ka)
+    from repro_torch.kernels import (_build, block_matvec as bmv,
+                                     fused_rbf_matmat as frm,
+                                     kmeans_assign as ka,
+                                     rbf_similarity as rbf)
 
     kernels = {"fused_rbf_matmat": frm.fused_rbf_matmat,
                "fused_nystrom_matmat": frm.fused_nystrom_matmat,
-               "kmeans_assign": ka.kmeans_assign}
+               "kmeans_assign": ka.kmeans_assign,
+               "rbf_similarity": rbf.rbf_similarity,
+               "block_matmat": bmv.block_matmat}
+    fused_path = ("fused_rbf_matmat", "fused_nystrom_matmat",
+                  "kmeans_assign")
     card = card_line()
     print(card)
     dev = resolve_device()
@@ -254,10 +464,10 @@ def main() -> int:
     sigma = float(median_sigma(x))
     print(f"data: blobs n={N} d={D} k={K}, sigma={sigma:.6f}")
 
-    print("phase kernels vs plain:")
+    phase("kernels vs plain")
     rows = check_kernels(torch, x, sigma, dev)
 
-    print("phase small-input reference (card vs CPU plain versions):")
+    phase("small-input reference (card vs CPU plain versions)")
     n_small = 4096
     t0 = time.perf_counter()
     card_fit = SpectralClustering(K, eigensolver="block-lanczos",
@@ -276,30 +486,30 @@ def main() -> int:
     if ev_err > EIG_TOL or agree < ARI_MIN:
         fail("card fit disagrees with the CPU reference fit")
 
-    print("phase main path (fit, fit, serve):")
+    phase("fused main path (fit, fit, serve)")
     for fn in kernels.values():
         fn.launches = 0
     fits = {}
-    for solver in ("block-lanczos", "lanczos"):
+    for solver, n_fit in (("block-lanczos", N), ("lanczos", N_LANCZOS)):
         before = {k: fn.launches for k, fn in kernels.items()}
         t0 = time.perf_counter()
         est = SpectralClustering(K, affinity="fused-rbf",
                                  eigensolver=solver, assigner="lloyd",
                                  seed=0)
-        est.fit(pts[:N])
+        est.fit(pts[:n_fit])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         labels = est.labels_.cpu().numpy()
         evals = est.eigenvalues_.cpu().numpy()
-        score = ari(truth[:N], labels)
+        score = ari(truth[:n_fit], labels)
         launches = {k: fn.launches - before[k] for k, fn in kernels.items()}
-        print(f"  fit {solver}: wall {wall:.3f} s, phases "
+        print(f"  fit {solver} (n={n_fit}): wall {wall:.3f} s, phases "
               f"{ {k: round(v, 4) for k, v in est.info_['phase_s'].items()} },"
               f" matrix_passes {est.info_['engine']['matrix_passes']}, "
               f"launches {launches}")
         print(f"    eigenvalues {np.array2string(evals, precision=6)}")
         print(f"    ARI vs planted labels {score:.6f}")
-        if labels.shape != (N,) or not np.isfinite(evals).all():
+        if labels.shape != (n_fit,) or not np.isfinite(evals).all():
             fail(f"fit {solver}: bad labels shape or eigenvalues")
         if score < ARI_MIN:
             fail(f"fit {solver}: ARI {score:.4f} < {ARI_MIN}")
@@ -321,11 +531,36 @@ def main() -> int:
             fail(f"predict request {r}: route {route}, ARI {score:.4f}")
     launches = {k: fn.launches - before[k] for k, fn in kernels.items()}
     print(f"  serve launches {launches}")
-    counts = {k: fn.launches for k, fn in kernels.items()}
-    print(f"  main path launches {counts}")
-    for k, c in counts.items():
-        if c <= 0:
-            fail(f"the main path never launched {k}")
+    fused_counts = {k: fn.launches for k, fn in kernels.items()}
+    print(f"  fused main path launches {fused_counts}")
+    for k in fused_path:
+        if fused_counts[k] <= 0:
+            fail(f"the fused main path never launched {k}")
+    del fits, est
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    pts, truth = blobs(N_DENSE + M_REQ, K, dim=D, seed=0)
+    xd = torch.as_tensor(pts[:N_DENSE], device=dev)
+    sigma_d = float(median_sigma(xd))
+    print(f"data: blobs n={N_DENSE} d={D} k={K}, sigma={sigma_d:.6f}")
+    phase("dense kernels vs plain")
+    rows.update(check_dense_kernels(torch, xd, sigma_d, dev))
+    del xd
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("dense main path (fit dense, knn-topt, precomputed)")
+    dense_counts = dense_path(torch, np, pts, truth, kernels)
+    print(f"  dense main path launches {dense_counts}")
+    for k in ("rbf_similarity", "block_matmat", "kmeans_assign",
+              "fused_nystrom_matmat"):
+        if dense_counts[k] <= 0:
+            fail(f"the dense main path never launched {k}")
+    counts = {k: fused_counts[k] + dense_counts[k] for k in kernels}
+    print(f"  main path launches, both paths {counts}")
+    print(f"chip_smoke: all phases passed in "
+          f"{time.perf_counter() - T_START:.1f} s")
 
     print(card)
     print(json.dumps({"kernels": [

@@ -1,4 +1,4 @@
-"""Eigensolver backends — port of ``repro/cluster/eigensolvers.py:42-60``.
+"""Eigensolver backends — port of ``repro/cluster/eigensolvers.py:42-89``.
 
 Signature: ``backend(est, op, generator) -> (eigenvalues, Z, info)`` with
 the k smallest eigenvalues of L_sym (ascending), the matching (n, k)
@@ -9,8 +9,13 @@ Ported backends:
                  pass per step.
   block-lanczos  the block-tridiagonal recurrence through ``op.matmat``:
                  the same Krylov dimension in ~1/b the matrix passes.
+  eigh           exact dense eigendecomposition of the materialized
+                 operator (``torch.linalg.eigh``) — the oracle, O(n^3),
+                 for tests and small n.
 """
 from __future__ import annotations
+
+import torch
 
 from repro_torch.cluster.registry import Registry
 from repro_torch.core import lanczos as lz
@@ -38,3 +43,15 @@ def block_lanczos_solver(est, op, generator):
     evals, Z = lz.block_topk_of_shifted(state, est.k, shift=_SHIFT)
     return evals, Z, {"block_size": b, "block_steps": steps,
                       "matrix_passes": steps}
+
+
+@EIGENSOLVERS.register("eigh")
+def eigh_solver(est, op, generator):
+    evals_A, evecs = torch.linalg.eigh(op.materialize())     # ascending
+    k = est.k
+    # largest of A <-> smallest of L_sym
+    Z = torch.flip(evecs[:, -k:], dims=[1])
+    vals = torch.flip(_SHIFT - evals_A[-k:], dims=[0])
+    # the dense factorization sweeps the n-row matrix ~n times: the
+    # iterative solvers' cost unit applied to eigh, as in JAX
+    return vals, Z, {"solver": "eigh", "matrix_passes": int(op.n)}

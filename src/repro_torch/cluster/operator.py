@@ -17,6 +17,9 @@ from typing import Any, Callable, Optional
 
 import torch
 
+# identity columns per matmat when A is assembled from its product
+MATERIALIZE_BLOCK = 128
+
 
 @dataclass
 class SpectralResult:
@@ -38,6 +41,10 @@ class NormalizedOperator:
     matvec:   (n,) -> (n,), derived width-1 view of ``matmat``.
     valid:    (n,) 1/0 row mask.
     inv_sqrt: (n,) D^{-1/2}, kept for the Nystrom extension.
+    dense:    optional zero-arg callable materializing A (n, n) exactly
+              (the dense-S backends) — what the ``eigh`` backend factors;
+              without it :meth:`materialize` applies ``matmat`` to
+              identity blocks.
     stats:    dict, or a zero-arg callable returning one (live counters).
     reset:    optional zero-arg callable restoring the counters to their
               post-build baseline (the estimator calls it before each
@@ -49,6 +56,7 @@ class NormalizedOperator:
     n: int
     matmat: Callable[[torch.Tensor], torch.Tensor]
     matvec: Optional[Callable[[torch.Tensor], torch.Tensor]] = None
+    dense: Optional[Callable[[], torch.Tensor]] = None
     stats: Any = field(default_factory=dict)
     reset: Optional[Callable[[], None]] = None
 
@@ -67,3 +75,15 @@ class NormalizedOperator:
     def unpermute(self, values: torch.Tensor) -> torch.Tensor:
         """Per-row values -> original point order."""
         return values[: self.n]
+
+    def materialize(self) -> torch.Tensor:
+        """Dense A: exact if the backend provided ``dense``, else
+        assembled from ``matmat`` applied to identity column blocks
+        (``MATERIALIZE_BLOCK`` wide, as in JAX)."""
+        if self.dense is not None:
+            return self.dense()
+        eye = torch.eye(self.n, dtype=self.valid.dtype,
+                        device=self.valid.device)
+        return torch.cat([self.matmat(eye[:, c0:c0 + MATERIALIZE_BLOCK])
+                          for c0 in range(0, self.n, MATERIALIZE_BLOCK)],
+                         dim=1)

@@ -39,6 +39,14 @@ SIGNATURES = {
         # points, centers, idx, dist, n, k, d, stream
         "kmeans_assign": (_P, _P, _P, _P, _I, _I, _I, _P),
     },
+    "rbf_similarity": {
+        # x, y, out, n, m, d, inv2s2, stream
+        "rbf_similarity": (_P, _P, _P, _I, _I, _I, _F, _P),
+    },
+    "block_matmat": {
+        # A, V, out, n, m, b, stream
+        "block_matmat": (_P, _P, _P, _I, _I, _I, _P),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,9 +1,10 @@
 """Public wrappers for the port's kernels.
 
-Port of ``repro/kernels/ops.py:62-156``: defaults for omitted scales and
-masks, and dtype normalisation.  The JAX wrappers also pad every operand
-to tile multiples; the CUDA kernels mask the ragged edge themselves, so
-nothing here pads.  Rows a caller marks invalid get scale 0 (and
+Port of ``repro/kernels/ops.py:48-156``: defaults for omitted scales and
+masks, dtype normalisation, and blocks wider than a kernel takes (split
+into column groups, one launch each).  The JAX wrappers also pad every
+operand to tile multiples; the CUDA kernels mask the ragged edge
+themselves, so nothing here pads.  Rows a caller marks invalid get scale 0 (and
 ``col_valid`` 0) and contribute to nothing, as the JAX wrappers promise
 for their padding rows.
 """
@@ -11,8 +12,10 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import (fused_rbf_matmat as _frm,
-                                 kmeans_assign as _ka)
+from repro_torch.kernels import (block_matvec as _mv,
+                                 fused_rbf_matmat as _frm,
+                                 kmeans_assign as _ka,
+                                 rbf_similarity as _rbf)
 
 
 def _f32(t: torch.Tensor) -> torch.Tensor:
@@ -23,6 +26,33 @@ def _ones(n: int, like: torch.Tensor) -> torch.Tensor:
     return torch.ones((n,), dtype=torch.float32, device=like.device)
 
 
+def _by_width(fn, V: torch.Tensor, max_width: int) -> torch.Tensor:
+    """``fn(V)`` for a block of any width: column groups of at most
+    ``max_width``, one call each, side by side."""
+    if V.shape[1] <= max_width:
+        return fn(V)
+    return torch.cat([fn(V[:, c:c + max_width])
+                      for c in range(0, V.shape[1], max_width)], dim=1)
+
+
+def rbf_similarity(x: torch.Tensor, y: torch.Tensor, sigma) -> torch.Tensor:
+    """exp(-||x_i - y_j||^2 / 2 sigma^2) for all pairs; any (n, m)."""
+    return _rbf.rbf_similarity(_f32(x), _f32(y), sigma)
+
+
+def block_matmat(A: torch.Tensor, V: torch.Tensor) -> torch.Tensor:
+    """A @ V for any (n, m) A and (m, b) V (one pass over A per 64
+    columns of V)."""
+    A = _f32(A)
+    return _by_width(lambda W: _mv.block_matmat(A, W), _f32(V),
+                     _mv.MAX_WIDTH)
+
+
+def block_matvec(A: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A @ v for any (n, m) A: the width-1 view of :func:`block_matmat`."""
+    return _mv.block_matvec(_f32(A), _f32(v))
+
+
 def fused_rbf_matmat(x: torch.Tensor, y: torch.Tensor, V: torch.Tensor,
                      sigma, row_scale: torch.Tensor | None = None,
                      col_scale: torch.Tensor | None = None) -> torch.Tensor:
@@ -30,7 +60,10 @@ def fused_rbf_matmat(x: torch.Tensor, y: torch.Tensor, V: torch.Tensor,
     (n, d) / (m, d) / (m, b); omitted scales default to ones."""
     rs = _ones(x.shape[0], x) if row_scale is None else _f32(row_scale)
     cs = _ones(y.shape[0], y) if col_scale is None else _f32(col_scale)
-    return _frm.fused_rbf_matmat(_f32(x), _f32(y), _f32(V), sigma, rs, cs)
+    x, y = _f32(x), _f32(y)
+    return _by_width(
+        lambda W: _frm.fused_rbf_matmat(x, y, W, sigma, rs, cs), _f32(V),
+        _frm.MAX_WIDTH)
 
 
 def fused_nystrom_matmat(x: torch.Tensor, y: torch.Tensor, V: torch.Tensor,

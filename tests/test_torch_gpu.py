@@ -18,7 +18,9 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import fused_rbf_matmat as frm, kmeans_assign as ka
+from repro_torch.kernels import (block_matvec as bmv, fused_rbf_matmat as frm,
+                                 kmeans_assign as ka, ops,
+                                 rbf_similarity as rbf)
 
 
 def _t(a):
@@ -97,3 +99,67 @@ def test_gpu_kmeans_assign_kernel_matches_plain(cuda):
     assert bool((gap[idx != idx_r] <= 1e-4).all())   # only near-ties differ
     dup = torch.cat([c[:1], c]).contiguous()
     assert int(ka.kmeans_assign(c, dup)[0][0]) == 0   # tie -> lowest index
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,d", [(1000, 777, 3), (4097, 4095, 32),
+                                   (64, 70, 33), (1, 5, 2)])
+def test_gpu_rbf_similarity_kernel_matches_plain(cuda, n, m, d):
+    """Ragged edges (no tile multiple, m % 4 != 0) and d past one chunk."""
+    x, y, _, _, _ = _case(n + d, n, m, d, 1)
+    x[0] = 1e4                              # isolated point: exact zeros
+    xt, yt = _t(x).to(cuda), _t(y).to(cuda)
+    launches = rbf.rbf_similarity.launches
+    got = rbf.rbf_similarity(xt, yt, 2.0)
+    torch.cuda.synchronize()
+    assert rbf.rbf_similarity.launches == launches + 1
+    assert got.shape == (n, m)
+    assert _rel_err(got, rbf.rbf_similarity_plain(xt, yt, 2.0)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gpu_rbf_similarity_past_two_to_the_31(cuda):
+    """40000 x 60000 outputs: the last stripe lies past element 2^31."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn((40000, 32), generator=g, device=cuda)
+    y = torch.randn((60000, 32), generator=g, device=cuda)
+    S = rbf.rbf_similarity(x, y, 6.0)
+    for r0 in (0, 40000 - 1024):
+        want = rbf.rbf_similarity_plain(x[r0:r0 + 1024], y, 6.0)
+        assert _rel_err(S[r0:r0 + 1024], want) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,m,b", [(1000, 777, 1), (1000, 777, 3),
+                                   (8191, 8193, 8), (300, 129, 17),
+                                   (70, 5, 64), (5, 0, 2)])
+def test_gpu_block_matmat_kernel_matches_plain(cuda, n, m, b):
+    rng = np.random.RandomState(n + b)
+    A = _t(rng.randn(n, m)).to(cuda)
+    V = _t(rng.randn(m, b)).to(cuda)
+    launches = bmv.block_matmat.launches
+    got = bmv.block_matmat(A, V)
+    torch.cuda.synchronize()
+    assert bmv.block_matmat.launches == launches + 1
+    assert _rel_err(got, bmv.block_matmat_plain(A, V)) <= 1e-4
+    if b == 1:
+        assert _rel_err(bmv.block_matvec(A, V[:, 0]), (A @ V)[:, 0]) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_gpu_block_matmat_past_two_to_the_31_and_wide_blocks(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    A = torch.rand((40000, 60000), generator=g, device=cuda)
+    V = torch.randn((60000, 8), generator=g, device=cuda)
+    got = bmv.block_matmat(A, V)
+    want = bmv.block_matmat_plain(A, V)
+    assert _rel_err(got[-1024:], want[-1024:]) <= 1e-4
+    assert _rel_err(got, want) <= 1e-4
+    del A
+    W = torch.randn((150, 150), generator=g, device=cuda)
+    launches = bmv.block_matmat.launches
+    wide = ops.block_matmat(W[:100], W)           # 150 = 64 + 64 + 22
+    assert bmv.block_matmat.launches == launches + 3
+    assert _rel_err(wide, W[:100] @ W) <= 1e-4
+    with pytest.raises(ValueError, match="contiguous"):
+        bmv.block_matmat(W.T, W[:, :4])

@@ -3,7 +3,9 @@
 On the CPU each wrapper runs its plain PyTorch version; those are held
 against the Pallas kernels in interpret mode (``repro.kernels.ops``, as
 ``tests/test_fused_rbf.py`` runs them) and the ``repro.kernels.ref``
-oracles, on the same numpy inputs, at rtol = atol = 1e-4 in f32.
+oracles, on the same numpy inputs, at rtol = atol = 1e-4 in f32
+(``rbf_similarity`` at 1e-6 absolute; ``block_matmat`` at
+1e-4 * max(1, max |ref|), against the default schedule only).
 
 The CUDA kernels themselves are held against these plain versions on the
 card by ``tests/test_torch_gpu.py``.
@@ -16,8 +18,9 @@ import pytest
 import torch
 
 from repro.kernels import ops as jops, ref as jref
-from repro_torch.kernels import (_build, fused_rbf_matmat as frm,
-                                 kmeans_assign as ka, ops)
+from repro_torch.kernels import (_build, block_matvec as bmv,
+                                 fused_rbf_matmat as frm, kmeans_assign as ka,
+                                 ops, rbf_similarity as rbf)
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -153,6 +156,77 @@ def test_kmeans_assign_ties_go_to_lowest_index():
 
 
 # ---------------------------------------------------------------------------
+# rbf_similarity
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n,m,d", [(37, 50, 3), (130, 77, 5), (1, 9, 2),
+                                   (128, 128, 33)])
+def test_rbf_similarity_matches_jax(n, m, d):
+    """Ragged shapes (the JAX wrapper pads to 128-tiles, the port does
+    not); the f32-rounded 1 / (2 sigma^2) as in the Pallas kernel."""
+    x, y, _, _, _ = _case(n * m + d, n, m, d, 1)
+    x[0] = 50.0                             # far point: entries underflow
+    want = np.asarray(jops.rbf_similarity(x, y, 1.7, interpret=True))
+    got = ops.rbf_similarity(_t(x), _t(y), 1.7)
+    assert got.shape == (n, m) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jref.rbf_similarity(x, y, 1.7)), rtol=0,
+        atol=1e-6)
+
+
+def test_rbf_similarity_diagonal_is_near_one():
+    x, _, _, _, _ = _case(5, 64, 1, 8, 1)
+    S = ops.rbf_similarity(_t(x), _t(x), 0.5).numpy()
+    want = np.asarray(jops.rbf_similarity(x, x, 0.5, interpret=True))
+    np.testing.assert_array_equal(np.diag(S) > 0.999, True)
+    np.testing.assert_allclose(np.diag(S), np.diag(want), rtol=0, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# block_matmat / block_matvec
+# ---------------------------------------------------------------------------
+
+def _block_tol(ref):
+    return 1e-4 * max(1.0, float(np.abs(ref).max()))
+
+
+@pytest.mark.parametrize("n,m,b", [(37, 50, 1), (300, 600, 8),
+                                   (129, 513, 64), (20, 7, 70)])
+def test_block_matmat_matches_jax(n, m, b):
+    rng = np.random.RandomState(n + m + b)
+    A = rng.rand(n, m).astype(np.float32)
+    V = rng.randn(m, b).astype(np.float32)
+    want = np.asarray(jops.block_matmat(A, V, interpret=True))
+    ref = np.asarray(jref.block_matmat(A, V))
+    got = ops.block_matmat(_t(A), _t(V)).numpy()
+    assert got.shape == (n, b)
+    np.testing.assert_allclose(got, want, rtol=0, atol=_block_tol(want))
+    np.testing.assert_allclose(got, ref, rtol=0, atol=_block_tol(ref))
+    v_want = np.asarray(jops.block_matvec(A, V[:, 0], interpret=True))
+    v_got = ops.block_matvec(_t(A), _t(V[:, 0])).numpy()
+    assert v_got.shape == (n,)
+    np.testing.assert_allclose(v_got, v_want, rtol=0,
+                               atol=_block_tol(v_want))
+
+
+def test_wide_blocks_split_into_kernel_widths(monkeypatch):
+    """ops splits a block wider than one launch takes into column groups;
+    the result is the product of the whole block."""
+    widths = []
+    plain = bmv.block_matmat
+
+    def spy(A, V):
+        widths.append(V.shape[1])
+        return plain(A, V)
+
+    monkeypatch.setattr(bmv, "block_matmat", spy)
+    A, V = torch.randn(9, 11), torch.randn(11, 150)
+    torch.testing.assert_close(ops.block_matmat(A, V), A @ V)
+    assert widths == [64, 64, 22]
+
+
+# ---------------------------------------------------------------------------
 # wrapper contract
 # ---------------------------------------------------------------------------
 
@@ -169,11 +243,19 @@ def test_wrappers_reject_bad_input():
                              torch.ones(4), torch.ones(4))
     with pytest.raises(ValueError, match="centers"):
         ka.kmeans_assign(x, torch.zeros(2, 4))
+    with pytest.raises(ValueError, match="must be"):
+        rbf.rbf_similarity(x, torch.zeros(5, 2), 1.0)
+    with pytest.raises(TypeError, match="float32"):
+        rbf.rbf_similarity(x.double(), x.double(), 1.0)
+    with pytest.raises(ValueError, match="must be"):
+        bmv.block_matmat(x, torch.zeros(4, 2))
+    with pytest.raises(TypeError, match="float32"):
+        bmv.block_matmat(x, torch.zeros(3, 2, dtype=torch.float64))
 
 
 def test_cpu_calls_run_the_plain_version_and_launch_nothing():
     counters = [frm.fused_rbf_matmat, frm.fused_nystrom_matmat,
-                ka.kmeans_assign]
+                ka.kmeans_assign, rbf.rbf_similarity, bmv.block_matmat]
     before = [f.launches for f in counters]
     x = torch.randn(9, 3)
     got = ops.fused_rbf_matmat(x, x, torch.ones(9, 2), 1.0)
@@ -181,6 +263,9 @@ def test_cpu_calls_run_the_plain_version_and_launch_nothing():
         x, x, torch.ones(9, 2), 1.0, torch.ones(9), torch.ones(9)))
     ops.fused_nystrom_matmat(x, x, torch.ones(9, 2), 1.0, torch.ones(9))
     ops.kmeans_assign(x, x[:2])
+    assert torch.equal(ops.rbf_similarity(x, x, 1.0),
+                       rbf.rbf_similarity_plain(x, x, 1.0))
+    assert torch.equal(ops.block_matmat(x, x.T), x @ x.T)
     assert [f.launches for f in counters] == before
 
 
