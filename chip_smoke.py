@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py          # from the repository root, one card
+    python3 chip_smoke.py      # from the repository root, one card
 
 Phases, each fatal on failure (non-zero exit, no result line):
 
@@ -32,7 +32,28 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``rbf_similarity`` built; labels equal to the ``dense`` fit's), each
    ARI >= 0.99; the ``eigh`` oracle's eigenvalues against
    ``block-lanczos`` at n = 8192; the dense fit saved, loaded and serving
-   16384 held-out points with the labels of the fitted model.
+   16384 held-out points with the labels of the fitted model;
+7. ``flash_attention`` against its plain version at the LM path's shape
+   (qwen1.5-0.5b prefill: B = 1, 16 heads of 64, S = T = 2048, causal,
+   bf16) and at edge cases (ragged S, GQA 16/4, window 64, non-causal
+   S != T, S = T = 1, hd 16, 128 and 256, f32), elementwise within
+   atol + rtol * |plain|, the path's shape timed beside
+   ``scaled_dot_product_attention``;
+8. a small LM on the card against the CPU: qwen1.5's smoke config, f32,
+   flash route, prefill + 4 decode steps on the same weights, logits
+   within 2e-4 * max |logits|;
+9. the LM serving path, counters set to 0 just before it: qwen1.5-0.5b at
+   full width and depth (bf16 compute, random weights from a seed) behind
+   ``repro_torch.launch.serve.Server`` with ``serve.main``'s traffic and
+   2048-token prompts (4 slots, 8 requests, max_seq = prompt + 12 + 8);
+   every request completes with its budget, and the run launches
+   ``flash_attention`` exactly 24 * (1 + 8) times (the dummy batch
+   prefill and one prefill a request);
+10. the kernel route against the plain route at full width in f32: one
+   2048-token prompt through the flash route (the kernel) and the dense
+   route (``_sdpa_dense``): prefill logits and KV cache within 2e-3 * max,
+   and the greedy token of every position equal wherever its top-1/top-2
+   margin exceeds that limit.
 
 The last two lines of standard output are one JSON object per kernel
 (``{"kernels": [...]}``) and ``{"ok": true, "device": {...}}``.
@@ -56,15 +77,50 @@ ARI_MIN = 0.99
 TOL = 1e-4        # kernel vs plain: max |err| / max(1, max |plain|)
 EIG_TOL = 1e-3    # card fit vs CPU fit eigenvalues (small input)
 EIGH_TOL = 1e-4   # eigh vs block-lanczos eigenvalues (dense, n = N_EIGH)
-# H100 SXM data sheet, 700 W: HBM rate and f32 non-tensor peak
+# H100 SXM data sheet, 700 W: HBM rate, f32 non-tensor and bf16 tensor peaks
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12
 N_DENSE = 65536                  # dense path: 4 n^2 bytes = 16 GiB of S
 N_EIGH = 8192                    # the eigh oracle's size
 STRIPE = 4096                    # rows of S compared with the plain version
 # knn-topt's Krylov dimension: the top-10 graph's eigengap is far smaller
 # than the dense graph's, and the default 32 does not resolve 8 clusters
 KNN_LANCZOS_STEPS = 256
+# the LM serving path: serve.main's traffic with 2048-token prompts
+LM_ARCH = "qwen1.5-0.5b"
+LM_SLOTS, LM_REQUESTS, LM_PROMPT, LM_GEN = 4, 8, 2048, 12
+LM_MAX_SEQ = LM_PROMPT + LM_GEN + 8               # as serve.main sets it
+# small LM, card vs CPU, f32, x max |logits|: the CPU parity tests'
+# whole-model limit (tests/test_torch_models.py)
+LM_REF_TOL = 2e-4
+# kernel route vs plain route at full width, f32, x max |logits|: the JAX
+# package's limit between two attention routes of one f32 model
+# (tests/test_models.py:76); a wrong kernel differs by O(1)
+LM_ROUTE_TOL = 2e-3
+# flash_attention vs plain, elementwise: |err| <= atol + rtol * |plain|,
+# (rtol, atol) by dtype.  Tighter than the JAX flash tests' allclose
+# (tests/test_kernels_flash.py:28, atol = rtol = 2e-2 in bf16).  bf16: the
+# outputs of both are rounded to bf16 (1 ulp <= 2^-7 of the value, inside
+# rtol), and the kernel rounds p to bf16 before the PV product (2^-9 of
+# each term p v, up to ~4e-3 on an output near 0 where |v| reaches 4).
+FLASH_TOL = {"bfloat16": (1e-2, 4e-3), "float32": (2e-5, 2e-5)}
+# name, B, H, KV, S, T, hd, dtype, causal, window; the first is the path's
+FLASH_CASES = (
+    ("path", 1, 16, 16, 2048, 2048, 64, "bfloat16", True, -1),
+    ("ragged S", 2, 16, 16, 1000, 1000, 64, "bfloat16", True, -1),
+    ("GQA 16/4", 1, 16, 4, 2048, 2048, 64, "bfloat16", True, -1),
+    ("window 64", 1, 16, 16, 2048, 2048, 64, "bfloat16", True, 64),
+    ("non-causal S != T", 1, 16, 16, 1000, 1500, 64, "bfloat16", False,
+     -1),
+    ("S = T = 1", 1, 16, 16, 1, 1, 64, "bfloat16", True, -1),
+    ("hd 16 (smoke)", 2, 4, 4, 300, 300, 16, "bfloat16", True, -1),
+    ("hd 128", 1, 8, 2, 1000, 1000, 128, "bfloat16", True, -1),
+    ("hd 256, window", 1, 4, 1, 1000, 1000, 256, "bfloat16", True, 512),
+    ("f32", 1, 16, 16, 2048, 2048, 64, "float32", True, -1),
+    ("f32 hd 256, non-causal", 1, 2, 1, 513, 700, 256, "float32", False,
+     -1),
+)
 
 
 T_START = time.perf_counter()
@@ -87,8 +143,9 @@ def card_line() -> str:
     return out.stdout.strip()
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS
+          ) -> tuple[float, str]:
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -245,6 +302,20 @@ def check_kernels(torch, x, sigma, dev):
         shape=f"n={n} k={K} dim={K}", max_abs_err=errk, ms=tk, plain_ms=pk,
         bound_ms=bk, bound_by=bk_by, library_ms=None)
     return rows
+
+
+def compare_close(torch, name, got, want, rtol, atol) -> float:
+    """Max abs error of ``got`` against ``want``; fails where any element
+    is past ``atol + rtol * |want|``."""
+    err = (got - want).abs()
+    worst = float((err / (atol + rtol * want.abs())).max())
+    finite = bool(torch.isfinite(got).all())
+    print(f"  {name}: max_abs_err {float(err.max()):.3e}, worst |err| / "
+          f"({atol:g} + {rtol:g} |plain|) {worst:.3f}"
+          f"{'' if finite else ' NON-FINITE'}")
+    if not finite or worst > 1.0:
+        fail(f"{name} disagrees with its plain version")
+    return float(err.max())
 
 
 def check_dense_kernels(torch, x, sigma, dev):
@@ -421,6 +492,241 @@ def dense_path(torch, np, pts, truth, kernels):
     return {k: f.launches for k, f in kernels.items()}
 
 
+def attn_pairs(S: int, T: int, causal: bool, window: int) -> int:
+    """Unmasked (query, key) pairs of one head, positions from 0."""
+    import numpy as np
+    q = np.arange(S, dtype=np.int64)
+    hi = np.minimum(q, T - 1) if causal else np.full(S, T - 1)
+    lo = np.maximum(0, q - window + 1) if window > 0 else np.zeros(S,
+                                                                  np.int64)
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def check_flash(torch, dev):
+    """Phase 7: ``flash_attention`` against its plain version, and the
+    path's shape timed beside ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    errs = []
+    for name, B, H, KV, S, T, hd, dtype, causal, window in FLASH_CASES:
+        dt = getattr(torch, dtype)
+        q, k, v = (torch.randn(shape, generator=g, device=dev).to(dt)
+                   for shape in ((B, H, S, hd), (B, KV, T, hd),
+                                 (B, KV, T, hd)))
+        label = (f"flash_attention {name}: B={B} H={H} KV={KV} S={S} T={T}"
+                 f" hd={hd} {dtype} causal={causal} window={window}")
+        want = fa.flash_attention_plain(q, k, v, causal, window).float()
+        errs.append(compare_close(torch, label, fa.flash_attention(
+            q, k, v, causal, window).float(), want, *FLASH_TOL[dtype]))
+        if name != "path":
+            continue
+        # the yardstick: one library call on the same inputs (H = KV here)
+        sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=causal)
+        lib_err = float((sdpa().float() - want).abs().max())
+        t = time_ms(torch, lambda: fa.flash_attention(q, k, v, causal,
+                                                      window), 20)
+        p = time_ms(torch, lambda: fa.flash_attention_plain(
+            q, k, v, causal, window), 3)
+        lib = time_ms(torch, sdpa, 20)
+        flops = 4 * hd * attn_pairs(S, T, causal, window) * H * B
+        nbytes = q.element_size() * hd * B * (2 * H * S + 2 * KV * T)
+        b, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        print(f"  timing flash_attention path: kernel {t:.4f} ms, plain "
+              f"{p:.4f} ms, sdpa {lib:.4f} ms (max |sdpa - plain| "
+              f"{lib_err:.3e}), bound {b:.4f} ms ({b_by}; {flops:.3e} flop "
+              f"at the bf16 tensor peak, {nbytes:.3e} B)")
+        row = dict(source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                   replaces="src/repro/kernels/flash_attention.py:83",
+                   shape=f"B={B} H={H} KV={KV} S=T={S} hd={hd} {dtype} "
+                         f"causal={causal}",
+                   ms=t, plain_ms=p, bound_ms=b, bound_by=b_by,
+                   library_ms=lib)
+    row["max_abs_err"] = max(errs)
+    return {"flash_attention": row}
+
+
+def lm_reference(torch, np, dev):
+    """Phase 8: qwen1.5's smoke config on the card (flash kernel) against
+    the same weights on the CPU (plain versions), f32, prefill + 4 decode
+    steps."""
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api, params as pp
+    cfg = configs.get_smoke(LM_ARCH).with_(compute_dtype=torch.float32,
+                                           use_flash_attention=True)
+    cpu = api.build(cfg, "cpu")
+    weights = cpu.init(torch.Generator().manual_seed(0))
+    runs = {"cuda": (api.build(cfg), pp.tree_map(lambda t: t.to(dev),
+                                                 weights)),
+            "cpu": (cpu, weights)}
+    toks = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 104))
+    out = {}
+    for where, (model, p) in runs.items():
+        before = fa.flash_attention.launches
+        t = torch.as_tensor(toks, device=model.device)
+        lg, cache = model.prefill(p, {"tokens": t[:, :100]}, max_seq=104)
+        steps = [lg]
+        for i in range(100, 104):
+            lg, cache = model.decode_step(p, cache, t[:, i:i + 1])
+            steps.append(lg)
+        out[where] = torch.cat(steps, dim=1).cpu()
+        launched = fa.flash_attention.launches - before
+        print(f"  {where}: flash_attention launches {launched}")
+        if launched != (cfg.num_layers if where == "cuda" else 0):
+            fail(f"the small LM on {where} launched flash_attention "
+                 f"{launched} times")
+    err = float((out["cuda"] - out["cpu"]).abs().max())
+    scale = float(out["cpu"].abs().max())
+    print(f"  {cfg.name} smoke (d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads of {cfg.hd()}, {cfg.num_layers} layers), f32, prompt 100 "
+          f"+ 4 decode steps: max |card - cpu| {err:.3e} (limit "
+          f"{LM_REF_TOL * scale:.3e} = {LM_REF_TOL} x max |logits| "
+          f"{scale:.4f})")
+    if not bool(torch.isfinite(out["cuda"]).all()) \
+            or err > LM_REF_TOL * scale:
+        fail("the small LM on the card disagrees with the CPU reference")
+
+
+def lm_serve(torch, np, kernels):
+    """Phase 9: the LM serving path at full width; returns the launch
+    counts of the phase, the server and its queue."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api
+
+    class TimedServer(serve.Server):
+        """The port's Server, with each prefill and decode step timed."""
+
+        def __init__(self, *a, **kw):
+            self.prefill_ms, self.step_ms = [], []
+            super().__init__(*a, **kw)
+
+        def _prefill_slot(self, slot, req):
+            t0 = time.perf_counter()
+            super()._prefill_slot(slot, req)      # ends in a host read
+            self.prefill_ms.append((time.perf_counter() - t0) * 1e3)
+
+        def step(self):
+            t0 = time.perf_counter()
+            super().step()                        # ends in a host read
+            self.step_ms.append((time.perf_counter() - t0) * 1e3)
+
+    cfg = configs.get(LM_ARCH).with_(use_flash_attention=True)
+    model = api.build(cfg)
+    rng = np.random.RandomState(0)
+    queue = [serve.Request(rid=i, prompt=rng.randint(
+                 0, cfg.vocab_size, LM_PROMPT).astype(np.int32),
+                 max_new=LM_GEN + rng.randint(0, 5))
+             for i in range(LM_REQUESTS)]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    for f in kernels.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    srv = TimedServer(model, LM_SLOTS, LM_PROMPT, LM_MAX_SEQ)
+    torch.cuda.synchronize()
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    done = srv.run(queue)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: f.launches for k, f in kernels.items()}
+    peak = torch.cuda.max_memory_allocated()
+    tokens = sum(len(r.out) for r in done)
+    pos = int(srv.cache["pos"])
+    pm, sm = np.array(srv.prefill_ms), np.array(srv.step_ms)
+    print(f"  {cfg.name}: {model.num_params()} parameters, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads of {cfg.hd()}, vocab {cfg.vocab_size}, params "
+          f"{cfg.param_dtype}, compute {cfg.compute_dtype}")
+    print(f"  server build (random weights + dummy prefill of "
+          f"{LM_SLOTS} x {LM_PROMPT}): {t_build:.3f} s")
+    print(f"  run: {len(done)} requests, {tokens} tokens, {srv.steps} decode "
+          f"steps, wall {wall:.3f} s, {tokens / wall:.1f} tok/s aggregate, "
+          f"final pos {pos} (max_seq {LM_MAX_SEQ})")
+    print(f"  prefill ms per request (prompt {LM_PROMPT}): "
+          f"{np.array2string(pm, precision=3)} (mean {pm.mean():.3f})")
+    print(f"  decode ms per step ({LM_SLOTS} slots): mean {sm.mean():.3f}, "
+          f"min {sm.min():.3f}, max {sm.max():.3f}")
+    print(f"  peak device memory {peak / 2**30:.2f} GiB, launches {counts}")
+    for r in done:
+        print(f"    req {r.rid}: max_new {r.max_new}, {len(r.out)} tokens "
+              f"-> {r.out[:6]}...")
+    if len(done) != LM_REQUESTS or not all(
+            r.done and len(r.out) == r.max_new
+            and all(0 <= t < cfg.vocab_size for t in r.out) for r in done):
+        fail("the server did not complete every request with its budget")
+    # the reference's shared position: the dummy prompt's length plus the
+    # decode steps, past max_seq when the run is long enough
+    if pos != LM_PROMPT + srv.steps:
+        fail(f"final pos {pos} != {LM_PROMPT} + {srv.steps} steps")
+    want = cfg.num_layers * (1 + LM_REQUESTS)
+    if counts["flash_attention"] != want:
+        fail(f"the serving path launched flash_attention "
+             f"{counts['flash_attention']} times, not {want}")
+    return counts, srv, queue
+
+
+def lm_routes(torch, np, srv, queue):
+    """Phase 10: the kernel route against the plain route at full width in
+    f32, on the served weights and the first request's prompt."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import api
+    toks = torch.as_tensor(queue[0].prompt[None].astype(np.int64),
+                           device=srv.device)
+    out = {}
+    for flash in (True, False):
+        model = api.build(srv.cfg.with_(use_flash_attention=flash,
+                                        compute_dtype=torch.float32))
+        before = fa.flash_attention.launches
+        t0 = time.perf_counter()
+        lg, cache = model.prefill(srv.params, {"tokens": toks},
+                                  max_seq=LM_MAX_SEQ)
+        full, _ = model.forward(srv.params, {"tokens": toks})
+        torch.cuda.synchronize()
+        launched = fa.flash_attention.launches - before
+        print(f"  {'flash' if flash else 'dense'} route, f32: prefill + "
+              f"forward of {toks.shape[1]} tokens {time.perf_counter() - t0:.3f}"
+              f" s, flash_attention launches {launched}")
+        if launched != (2 * srv.cfg.num_layers if flash else 0):
+            fail(f"the {'flash' if flash else 'dense'} route launched "
+                 f"flash_attention {launched} times")
+        out[flash] = (lg, cache, full[0])
+        del full
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def gap(a, b):
+        return float((a.float() - b.float()).abs().max()), float(
+            b.float().abs().max())
+
+    ok = True
+    for what, a, b in (("prefill logits", out[True][0], out[False][0]),
+                       ("KV cache k", out[True][1]["k"], out[False][1]["k"]),
+                       ("KV cache v", out[True][1]["v"], out[False][1]["v"]),
+                       ("forward logits", out[True][2], out[False][2])):
+        err, scale = gap(a, b)
+        finite = bool(torch.isfinite(a).all())
+        print(f"  {what}: max |flash - dense| {err:.3e} (limit "
+              f"{LM_ROUTE_TOL * scale:.3e} = {LM_ROUTE_TOL} x max |dense| "
+              f"{scale:.4e}){'' if finite else ' NON-FINITE'}")
+        ok = ok and finite and err <= LM_ROUTE_TOL * scale
+    flash_full, dense_full = out[True][2], out[False][2]
+    limit = LM_ROUTE_TOL * float(dense_full.abs().max())
+    top2 = dense_full.topk(2, dim=-1).values
+    clear = (top2[:, 0] - top2[:, 1]) > limit
+    same = flash_full.argmax(-1) == dense_full.argmax(-1)
+    print(f"  greedy tokens: {int(same.sum())}/{same.numel()} positions "
+          f"agree; {int(clear.sum())} have a top-1/top-2 margin above "
+          f"{limit:.3e}, of which {int((same & clear).sum())} agree")
+    if not ok or not bool(same[clear].all()):
+        fail("the kernel route disagrees with the plain route")
+
+
 def main() -> int:
     sys.stdout.reconfigure(line_buffering=True)   # progress survives a kill
     import torch
@@ -435,6 +741,7 @@ def main() -> int:
     from repro_torch.data.synthetic import blobs
     from repro_torch.device import resolve_device
     from repro_torch.kernels import (_build, block_matvec as bmv,
+                                     flash_attention as fa,
                                      fused_rbf_matmat as frm,
                                      kmeans_assign as ka,
                                      rbf_similarity as rbf)
@@ -443,7 +750,8 @@ def main() -> int:
                "fused_nystrom_matmat": frm.fused_nystrom_matmat,
                "kmeans_assign": ka.kmeans_assign,
                "rbf_similarity": rbf.rbf_similarity,
-               "block_matmat": bmv.block_matmat}
+               "block_matmat": bmv.block_matmat,
+               "flash_attention": fa.flash_attention}
     fused_path = ("fused_rbf_matmat", "fused_nystrom_matmat",
                   "kmeans_assign")
     card = card_line()
@@ -557,8 +865,25 @@ def main() -> int:
               "fused_nystrom_matmat"):
         if dense_counts[k] <= 0:
             fail(f"the dense main path never launched {k}")
-    counts = {k: fused_counts[k] + dense_counts[k] for k in kernels}
-    print(f"  main path launches, both paths {counts}")
+    del pts, truth
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    phase("flash_attention vs plain")
+    rows.update(check_flash(torch, dev))
+
+    phase("small LM reference (card vs CPU plain versions)")
+    lm_reference(torch, np, dev)
+
+    phase(f"LM serving path ({LM_ARCH}, full width)")
+    lm_counts, srv, queue = lm_serve(torch, np, kernels)
+
+    phase("kernel route vs plain route (full width, f32)")
+    lm_routes(torch, np, srv, queue)
+
+    counts = {k: fused_counts[k] + dense_counts[k] + lm_counts[k]
+              for k in kernels}
+    print(f"  main path launches, all paths {counts}")
     print(f"chip_smoke: all phases passed in "
           f"{time.perf_counter() - T_START:.1f} s")
 

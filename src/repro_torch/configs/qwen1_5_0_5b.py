@@ -1,0 +1,18 @@
+"""qwen1.5-0.5b [dense] — 24L, d_model 1024, 16H (MHA kv=16), d_ff 2816,
+vocab 151936; QKV bias.  [hf:Qwen/Qwen1.5-0.5B]"""
+from repro_torch.models.config import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen1.5-0.5b",
+    family="dense",
+    num_layers=24,
+    d_model=1024,
+    num_heads=16,
+    num_kv_heads=16,
+    d_ff=2816,
+    vocab_size=151_936,
+    qkv_bias=True,
+)
+
+SMOKE = CONFIG.with_(num_layers=4, d_model=64, d_ff=176, vocab_size=512,
+                     num_heads=4, num_kv_heads=4)

@@ -47,6 +47,12 @@ SIGNATURES = {
         # A, V, out, n, m, b, stream
         "block_matmat": (_P, _P, _P, _I, _I, _I, _P),
     },
+    "flash_attention": {
+        # q, k, v, o, B, H, KV, S, T, hd, dtype, scale, causal, window,
+        # stream
+        "flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                            _I, _I, _P),
+    },
 }
 
 _loaded: dict[str, ctypes.CDLL] = {}

@@ -1,6 +1,6 @@
 """Public wrappers for the port's kernels.
 
-Port of ``repro/kernels/ops.py:48-156``: defaults for omitted scales and
+Port of ``repro/kernels/ops.py:48-190``: defaults for omitted scales and
 masks, dtype normalisation, and blocks wider than a kernel takes (split
 into column groups, one launch each).  The JAX wrappers also pad every
 operand to tile multiples; the CUDA kernels mask the ragged edge
@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import (block_matvec as _mv,
+                                 flash_attention as _fa,
                                  fused_rbf_matmat as _frm,
                                  kmeans_assign as _ka,
                                  rbf_similarity as _rbf)
@@ -82,3 +83,24 @@ def kmeans_assign(points: torch.Tensor, centers: torch.Tensor
                   ) -> tuple[torch.Tensor, torch.Tensor]:
     """(labels, squared distances) of each point's nearest center."""
     return _ka.kmeans_assign(_f32(points), _f32(centers))
+
+
+# the JAX wrapper's default query and key tiles (``bq = bk = 256``)
+REFERENCE_TILE = 256
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = -1) -> torch.Tensor:
+    """Fused attention; q (B, H, S, hd), k/v (B, KV, T, hd) with query
+    head h reading kv head h // (H/KV), as ``jnp.repeat`` gives, without a
+    broadcast copy.  The JAX wrapper pads S and T to its tiles and refuses
+    the paddings its kernel cannot mask; that refusal is kept here (a
+    ``ValueError``), though the CUDA kernel masks every ragged tile
+    itself and nothing is padded."""
+    S, T = q.shape[2], k.shape[2]
+    tile_q, tile_k = min(REFERENCE_TILE, S), min(REFERENCE_TILE, T)
+    s_pad, t_pad = -(-S // tile_q) * tile_q, -(-T // tile_k) * tile_k
+    if t_pad != T and not (causal and s_pad == t_pad):
+        raise ValueError(f"flash_attention: non-causal padding unsupported "
+                         f"(S={S}, T={T}, causal={causal})")
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)

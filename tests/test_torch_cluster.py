@@ -225,7 +225,16 @@ def test_port_sources_import_neither_jax_nor_repro():
     scanned = {os.path.relpath(p, REPO) for p in files}
     assert {"src/repro_torch/kernels/rbf_similarity.py",
             "src/repro_torch/kernels/block_matvec.py",
-            "src/repro_torch/cluster/affinity.py"} <= scanned, scanned
+            "src/repro_torch/cluster/affinity.py",
+            "src/repro_torch/kernels/flash_attention.py",
+            "src/repro_torch/models/config.py",
+            "src/repro_torch/models/params.py",
+            "src/repro_torch/models/layers.py",
+            "src/repro_torch/models/transformer.py",
+            "src/repro_torch/models/api.py",
+            "src/repro_torch/configs/__init__.py",
+            "src/repro_torch/configs/qwen1_5_0_5b.py",
+            "src/repro_torch/launch/serve.py"} <= scanned, scanned
     for path in files:
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "repro"), \
@@ -241,7 +250,14 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
         "for name in mods:\n"
         "    importlib.import_module(name)\n"
         "assert {'repro_torch.kernels.rbf_similarity',\n"
-        "        'repro_torch.kernels.block_matvec'} <= set(mods), mods\n"
+        "        'repro_torch.kernels.block_matvec',\n"
+        "        'repro_torch.kernels.flash_attention',\n"
+        "        'repro_torch.models.config', 'repro_torch.models.params',\n"
+        "        'repro_torch.models.layers',\n"
+        "        'repro_torch.models.transformer', 'repro_torch.models.api',\n"
+        "        'repro_torch.configs', 'repro_torch.configs.qwen1_5_0_5b',\n"
+        "        'repro_torch.launch',\n"
+        "        'repro_torch.launch.serve'} <= set(mods), mods\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(mods), bad)\n")
@@ -250,7 +266,7 @@ def test_importing_the_port_loads_no_jax_and_no_repro():
                          text=True, env=env, timeout=300)
     assert out.returncode == 0, out.stderr
     count, bad = out.stdout.split(" ", 1)
-    assert int(count) >= 20 and bad.strip() == "[]", out.stdout
+    assert int(count) >= 36 and bad.strip() == "[]", out.stdout
 
 
 def test_no_card_and_no_cpu_request_raises(monkeypatch):

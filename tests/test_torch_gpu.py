@@ -10,7 +10,9 @@ there as
 
 Tolerance: max |kernel - plain| <= 1e-4 * max(1, max |plain|) — f32 sums
 taken in another order; ``kmeans_assign`` labels may differ only on
-near-ties.
+near-ties.  ``flash_attention`` elementwise: |kernel - plain| <= atol +
+rtol * |plain|, (rtol, atol) = (2e-5, 2e-5) in f32 and (1e-2, 4e-3) in
+bf16 (``chip_smoke.FLASH_TOL``, tighter than the JAX flash tests' 2e-2).
 """
 from __future__ import annotations
 
@@ -18,9 +20,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import (block_matvec as bmv, fused_rbf_matmat as frm,
-                                 kmeans_assign as ka, ops,
-                                 rbf_similarity as rbf)
+from repro_torch.kernels import (block_matvec as bmv,
+                                 flash_attention as fa,
+                                 fused_rbf_matmat as frm, kmeans_assign as ka,
+                                 ops, rbf_similarity as rbf)
 
 
 def _t(a):
@@ -163,3 +166,65 @@ def test_gpu_block_matmat_past_two_to_the_31_and_wide_blocks(cuda):
     assert _rel_err(wide, W[:100] @ W) <= 1e-4
     with pytest.raises(ValueError, match="contiguous"):
         bmv.block_matmat(W.T, W[:, :4])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,KV,S,T,hd,dtype,causal,window", [
+    (1, 4, 1, 1000, 1000, 256, "bfloat16", True, 512),   # ragged, window
+    (2, 6, 2, 1000, 1000, 128, "float32", True, -1),     # ragged, GQA
+    (1, 2, 2, 300, 700, 64, "float32", False, -1),       # non-causal S < T
+    (1, 3, 3, 129, 129, 64, "bfloat16", True, 16),       # window < tile
+    (1, 2, 1, 513, 513, 256, "float32", True, 64),
+    (1, 2, 1, 300, 40, 256, "bfloat16", False, 8),       # rows see no key
+    (1, 2, 1, 300, 40, 64, "float32", True, 8),
+    (2, 4, 4, 100, 100, 16, "float32", True, -1),        # smoke widths
+    (2, 4, 2, 100, 130, 64, "bfloat16", False, -1)])
+def test_gpu_flash_attention_kernel_matches_plain(cuda, B, H, KV, S, T, hd,
+                                                  dtype, causal, window):
+    g = torch.Generator(device=cuda).manual_seed(S + hd)
+    dt = getattr(torch, dtype)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dt)
+               for shape in ((B, H, S, hd), (B, KV, T, hd), (B, KV, T, hd)))
+    launches = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, causal, window)
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + 1
+    assert got.dtype == dt and got.shape == q.shape
+    want = fa.flash_attention_plain(q, k, v, causal, window)
+    rtol, atol = (2e-5, 2e-5) if dtype == "float32" else (1e-2, 4e-3)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= atol + rtol * want.float().abs()).all())
+
+
+@pytest.mark.gpu
+def test_gpu_flash_attention_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 1, 8, 48), device=cuda)
+    with pytest.raises(ValueError, match="head dims"):
+        fa.flash_attention(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=cuda).transpose(1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q, q, q)
+
+
+@pytest.mark.gpu
+def test_gpu_lm_flash_route_launches_the_kernel_per_layer(cuda):
+    """qwen1.5's smoke config (4 heads of 16): a prefill on the flash
+    route launches the kernel once a layer and matches the CPU's plain
+    route within 2e-4 * max |logits| (f32)."""
+    from repro_torch import configs
+    from repro_torch.models import api, params as pp
+    cfg = configs.get_smoke("qwen1.5-0.5b").with_(
+        compute_dtype=torch.float32, use_flash_attention=True)
+    cpu = api.build(cfg, "cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    toks = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (2, 40)))
+    want, _ = cpu.prefill(params, {"tokens": toks})
+    card = api.build(cfg, cuda)
+    launches = fa.flash_attention.launches
+    got, _ = card.prefill(pp.tree_map(lambda t: t.to(cuda), params),
+                          {"tokens": toks.to(cuda)})
+    torch.cuda.synchronize()
+    assert fa.flash_attention.launches == launches + cfg.num_layers
+    assert float((got.cpu() - want).abs().max()) <= \
+        2e-4 * float(want.abs().max())

@@ -19,6 +19,7 @@ import torch
 
 from repro.kernels import ops as jops, ref as jref
 from repro_torch.kernels import (_build, block_matvec as bmv,
+                                 flash_attention as fa,
                                  fused_rbf_matmat as frm, kmeans_assign as ka,
                                  ops, rbf_similarity as rbf)
 
@@ -251,11 +252,21 @@ def test_wrappers_reject_bad_input():
         bmv.block_matmat(x, torch.zeros(4, 2))
     with pytest.raises(TypeError, match="float32"):
         bmv.block_matmat(x, torch.zeros(3, 2, dtype=torch.float64))
+    q4 = torch.zeros(1, 4, 8, 16)
+    with pytest.raises(ValueError, match="must be"):
+        fa.flash_attention(q4, torch.zeros(1, 2, 8, 8),
+                           torch.zeros(1, 2, 8, 8))
+    with pytest.raises(ValueError, match="multiple"):
+        fa.flash_attention(q4, torch.zeros(1, 3, 8, 16),
+                           torch.zeros(1, 3, 8, 16))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        fa.flash_attention(q4.half(), q4.half(), q4.half())
 
 
 def test_cpu_calls_run_the_plain_version_and_launch_nothing():
     counters = [frm.fused_rbf_matmat, frm.fused_nystrom_matmat,
-                ka.kmeans_assign, rbf.rbf_similarity, bmv.block_matmat]
+                ka.kmeans_assign, rbf.rbf_similarity, bmv.block_matmat,
+                fa.flash_attention]
     before = [f.launches for f in counters]
     x = torch.randn(9, 3)
     got = ops.fused_rbf_matmat(x, x, torch.ones(9, 2), 1.0)
@@ -266,6 +277,9 @@ def test_cpu_calls_run_the_plain_version_and_launch_nothing():
     assert torch.equal(ops.rbf_similarity(x, x, 1.0),
                        rbf.rbf_similarity_plain(x, x, 1.0))
     assert torch.equal(ops.block_matmat(x, x.T), x @ x.T)
+    q = torch.randn(1, 2, 9, 64)
+    assert torch.equal(ops.flash_attention(q, q, q),
+                       fa.flash_attention_plain(q, q, q))
     assert [f.launches for f in counters] == before
 
 
